@@ -1,8 +1,8 @@
-"""TPU-native AprilTag detector (layer 3 of the build plan, SURVEY.md 7.1).
+"""Batched AprilTag detector (layer 3 of the build plan, SURVEY.md 7.1).
 
 Replaces the reference's use of the umich C libapriltag (via apriltag-sys,
 ``/root/reference/crates/apriltags/``) and subsumes the custom from-scratch
-detector (``crates/chalkydri-apriltags/``) with fixed-shape JAX/Pallas stages:
+detector (``crates/chalkydri-apriltags/``) with fixed-shape JAX stages:
 
   threshold  -> adaptive tile threshold      (threshold.py)
   segment    -> label-propagation CCL        (segment.py)

@@ -7,12 +7,13 @@ white pixel contributes a boundary point at the doubled-coordinate edge
 midpoint with a gradient direction; points are grouped by the *pair* of
 component labels on either side, so each tag border yields one cluster.
 
-TPU re-design (fixed shapes, and — critically — no large scatters/gathers,
-which cost ~25-35 ms per 4M elements on v5e while 4M sorts cost ~6 ms):
+Accelerator re-design (fixed shapes, and no large scatters/gathers: a
+sort over the compacted candidates does the grouping that libapriltag's
+hash map does one point at a time):
 
 - candidate edges are enumerated densely (4 directions x H x W masks),
 - each candidate's position+direction is PACKED into one int32 payload,
-- a BLOCK-SPARSE compaction keeps only the 128-lane blocks that actually
+- a BLOCK-SPARSE compaction keeps only the 128-candidate blocks that actually
   contain boundary candidates (edges are spatially sparse: a few thousand
   points in a 512k-candidate grid), shrinking the sort input ~8x — per-block
   popcounts + top-k block selection + one small gather, no scatters,
@@ -39,8 +40,8 @@ import jax
 import jax.numpy as jnp
 
 MAX_EDGE_POINTS = 1 << 16  # per frame, after sorting/compaction
-# (halving to 2^15 was measured 0.73 ms faster on v5e but drops the
-# noisy-corpus tag at 640x480 — capacity is a robustness parameter)
+# (halving to 2^15 drops the noisy-corpus tag at 640x480 — capacity is a
+# robustness parameter, not a speed dial)
 MAX_CLUSTERS = 64  # candidate quads per frame
 MAX_CLUSTER_POINTS = 128  # boundary points kept per cluster (stride-subsampled)
 MIN_CLUSTER_POINTS = 24  # smaller clusters can't be a tag border
@@ -60,9 +61,8 @@ _INT_MAX = jnp.iinfo(jnp.int32).max
 
 class Clusters(NamedTuple):
     # Per cluster, per point: x, y in pixel coords; gx, gy gradient.
-    # CHANNEL-FIRST layout [4, K, P] = (x, y, gx, gy): a [K, P, 4] layout
-    # puts 4 in the TPU lane dimension (padded 4 -> 128), which measured
-    # ~135x slower to materialize on v5e.
+    # CHANNEL-FIRST layout [4, K, P] = (x, y, gx, gy): each channel is a
+    # contiguous [K, P] plane, so no size-4 minor axis is materialized.
     points: jax.Array  # [4, K, P] float32 (x, y, gx, gy)
     mask: jax.Array  # [K, P] bool
     count: jax.Array  # [K] int32 (true population, may exceed P)
@@ -254,15 +254,9 @@ def _compact_blocks(black, white, payload, cap, width):
     Each direction's page pads its minor axis to a 128 multiple so blocks
     never straddle rows/columns; pad slots carry INT_MAX labels (zero
     payload) and sink in the downstream sort exactly like dropped-block
-    slots. Implementation choice, measured on v5e (batch-2, vmapped,
-    in-scan): materializing the transposed dir-0 pages + whole-block row
-    gathers is the FAST form — 0.34 ms at 652x800 / 0.99 ms at 1304x1600
-    for extract+compact vs 0.66 / 1.02 for the old row-major compaction;
-    a zero-transpose variant that rowsel-gathered only the selected
-    blocks' elements cost 6.5-7.4 ms (per-ELEMENT row gathers do 64x the
-    row-fetch work of per-block gathers, and batched element gathers
-    under vmap lower catastrophically). See ``rank_blocks`` /
-    ``direction_boosts`` for the ranking rationale.
+    slots. The selected blocks move as whole 128-element rows (one
+    row gather per block, not one gather per element). See
+    ``rank_blocks`` / ``direction_boosts`` for the ranking rationale.
     """
     n = black.shape[0]
     n_dirs = len(_DIRS)
@@ -298,8 +292,7 @@ def _compact_blocks(black, white, payload, cap, width):
         counts0.sum() + counts1.sum()
         - counts0[idx0].sum() - counts1[idx1].sum()
     )
-    # Whole-block row gathers over [nb, 128] (lane-aligned rows): measured
-    # ~60x faster on v5e than flat 1D gathers of the same elements.
+    # Whole-block row gathers over [nb, 128].
     kept = tuple(
         jnp.concatenate([x0[idx0], x1[idx1]]).reshape(-1)
         for x0, x1 in ((b0, b1), (w0, w1), (p0, p1))
@@ -307,47 +300,66 @@ def _compact_blocks(black, white, payload, cap, width):
     return (*kept, dropped.astype(jnp.int32))
 
 
-import functools
+def take_rows(tables: jax.Array, idx: jax.Array) -> jax.Array:
+    """Per-row gather ``tables[b][idx[b]]``: tables [B, n], idx [B, ...]
+    int32 in [0, n) (callers clip)."""
+    return jax.vmap(lambda t, i: t[i])(tables, idx)
 
 
-@functools.lru_cache(maxsize=1)
-def _segment_kernel_compiles() -> bool:
-    """One tiny Mosaic compile probe (cached per process, and warm in the
-    persistent XLA compile cache across restarts): if this TPU backend
-    rejects the segment kernel, the detector self-heals onto the jnp
-    scan path instead of failing every pipeline build."""
-    try:
-        from chalkydri_tpu.ops.pallas.segment_kernel import (
-            segment_stats_pallas,
-        )
-
-        z = jnp.zeros(1024, jnp.int32)  # rows=8: one full (8, 128) tile
-        jax.jit(segment_stats_pallas).lower(z, z).compile()
-        return True
-    except Exception:  # Mosaic/compile errors are backend-specific
-        return False
+SEGMENT_CHUNK = 128  # run starts compete for the top-2 slots per chunk
 
 
-def _segment_backend() -> str:
-    """Where to run the post-sort run-length segmentation: the fused
-    Pallas VMEM kernel on TPU (one pass instead of three XLA scans), the
-    jnp path elsewhere. CHALKYDRI_NO_PALLAS=1 forces jnp (same switch as
-    the CCL kernel)."""
-    import os
+def segment_stats(s_key: jax.Array, s_payload: jax.Array):
+    """Run-length statistics of ONE frame's sorted candidate keys [n].
 
-    if os.environ.get("CHALKYDRI_NO_PALLAS") == "1":
-        return "jnp"
-    if jax.devices()[0].platform in ("cpu", "gpu"):
-        return "jnp"
-    return "pallas" if _segment_kernel_compiles() else "jnp"
+    Returns ``(t, cand_len, cand_pos)``: ``t`` is the inclusive cumsum of
+    the direction-0 indicator over valid candidates [n]; ``cand_len`` /
+    ``cand_pos`` [2 * ceil(n / SEGMENT_CHUNK)] are the per-chunk top-2
+    runs by length (each run start scored with its run length; ties go to
+    the first index), the first winners of every chunk before the second
+    winners. Two winners per chunk guard against two large runs starting
+    in one chunk without a top_k over all n rows.
+    """
+    n = s_key.shape[0]
+    s_valid = s_key != _INT_MAX
+    prev_key = jnp.concatenate([jnp.array([-1], jnp.int32), s_key[:-1]])
+    new_seg = s_key != prev_key
+
+    idx = jnp.arange(n, dtype=jnp.int32)
+    # run start position for every element: forward cummax of starts
+    start_pos = jax.lax.cummax(jnp.where(new_seg, idx, -1))
+    # next run start AFTER every element: reverse cummin of starts
+    nxt = jnp.where(new_seg, idx, _INT_MAX)
+    next_start = jax.lax.cummin(nxt, reverse=True)
+    next_start = jnp.concatenate([next_start[1:], jnp.array([n], jnp.int32)])
+    next_start = jnp.minimum(next_start, n)
+    run_len = next_start - start_pos
+    score = jnp.where(new_seg & s_valid, run_len, 0)
+    d0_all = ((((s_payload >> 26) & 0x3) == 0) & s_valid).astype(jnp.int32)
+    t = jnp.cumsum(d0_all)
+
+    chunk = SEGMENT_CHUNK
+    pad = (-n) % chunk
+    if pad:
+        score = jnp.concatenate([score, jnp.zeros((pad,), score.dtype)])
+    n_chunks = score.shape[0] // chunk
+    grid = score.reshape(n_chunks, chunk)
+    m1 = grid.max(axis=1)
+    a1 = grid.argmax(axis=1).astype(jnp.int32)
+    col = jax.lax.broadcasted_iota(jnp.int32, (n_chunks, chunk), 1)
+    grid2 = jnp.where(col == a1[:, None], 0, grid)
+    m2 = grid2.max(axis=1)
+    a2 = grid2.argmax(axis=1).astype(jnp.int32)
+    base = jnp.arange(n_chunks, dtype=jnp.int32) * chunk
+    return (t, jnp.concatenate([m1, m2]),
+            jnp.concatenate([base + a1, base + a2]))
 
 
 # The (black, white) pair hash is HASH_BITS wide; the rest of a 32-bit
 # fused sort key holds the frame index, so ONE lax.sort orders a whole
-# batch: a batched (vmapped) per-frame sort on v5e costs ~2.3x per element
-# what a single fused sort does (0.73 ms vs 0.40 ms at 4x131k rows,
-# BENCH_NOTES.md). 26 hash bits support batches up to 16 frames per fused
-# sort with the prefix still a positive int32; larger batches chunk.
+# batch instead of one sort per frame under vmap. 26 hash bits support
+# batches up to 16 frames per fused sort with the prefix still a positive
+# int32; larger batches chunk.
 HASH_BITS = 26
 _HASH_MASK = (1 << HASH_BITS) - 1  # doubles as the per-frame sentinel
 _FUSED_BATCH_MAX = 16
@@ -362,14 +374,13 @@ def cluster_candidates_batched(
     cluster_points: int = MAX_CLUSTER_POINTS,
     min_points: int = MIN_CLUSTER_POINTS,
     dropped=None,
-    segment_backend: str | None = None,
 ) -> Clusters:
     """Group (possibly compacted) boundary candidates into clusters for a
     BATCH of frames ([B, n] inputs, leading batch dim on every output):
     one fused sort -> per-frame run-length segment -> top-K -> window-gather
     tail. Shared by the single-device path (``gradient_clusters`` /
     make_detector) and the spatially-sharded path (parallel/pipeline.py),
-    whose globally-consistent ICI compaction hands it a bitwise-identical
+    whose globally-consistent compaction hands it a bitwise-identical
     candidate array.
 
     The sort is CANONICAL — lexicographic (frame | hash, payload) with
@@ -390,7 +401,6 @@ def cluster_candidates_batched(
                 cluster_points=cluster_points, min_points=min_points,
                 dropped=None if dropped is None
                 else dropped[i:i + _FUSED_BATCH_MAX],
-                segment_backend=segment_backend,
             )
             for i in range(0, b, _FUSED_BATCH_MAX)
         ]
@@ -432,71 +442,7 @@ def cluster_candidates_batched(
     n = s_key.shape[1]
 
     # --- run-length segmentation + chunked top-2 pre-selection -------------
-    # t = inclusive cumsum of the direction-0 indicator; cand_len/cand_pos
-    # are the per-128-chunk top-2 runs by length (run starts scored with
-    # their run length; 2 winners per chunk guard against two large runs
-    # starting in one chunk, and a flat top_k over the full array would
-    # cost ~60 ms on v5e at 4M rows). On TPU everything comes out of ONE
-    # fused Pallas VMEM pass (ops/pallas/segment_kernel.py, bit-identical
-    # by test); elsewhere three XLA scans + reshape reductions compute the
-    # same arrays.
-    if segment_backend is None:
-        segment_backend = _segment_backend()
-    chunk = 128  # the kernel's lane-row width; the jnp path mirrors it
-    # n >= 1024 keeps the kernel's [n/128, 128] block at or above the
-    # (8, 128) minimum int32 tile; smaller inputs take the jnp path.
-    if segment_backend != "jnp" and n % chunk == 0 and n >= 1024:
-        from chalkydri_tpu.ops.pallas.segment_kernel import (
-            segment_stats_pallas,
-        )
-
-        t, cand_len, cand_pos = jax.vmap(
-            lambda k, p: segment_stats_pallas(
-                k, p, interpret=(segment_backend == "pallas_interpret"),
-            )
-        )(s_key, s_payload)
-    else:
-
-        def _segment_jnp(s_key, s_payload):
-            s_valid = s_key != _INT_MAX
-            prev_key = jnp.concatenate(
-                [jnp.array([-1], jnp.int32), s_key[:-1]])
-            new_seg = s_key != prev_key
-
-            idx = jnp.arange(n, dtype=jnp.int32)
-            # run start position for every element: forward cummax of starts
-            start_pos = jax.lax.cummax(jnp.where(new_seg, idx, -1))
-            # next run start AFTER every element: reverse cummin of starts
-            nxt = jnp.where(new_seg, idx, _INT_MAX)
-            next_start = jax.lax.cummin(nxt, reverse=True)
-            next_start = jnp.concatenate(
-                [next_start[1:], jnp.array([n], jnp.int32)])
-            next_start = jnp.minimum(next_start, n)
-            run_len = next_start - start_pos
-            score = jnp.where(new_seg & s_valid, run_len, 0)
-            d0_all = ((((s_payload >> 26) & 0x3) == 0) & s_valid).astype(
-                jnp.int32)
-            t = jnp.cumsum(d0_all)
-
-            pad = (-n) % chunk
-            if pad:
-                score_p = jnp.concatenate(
-                    [score, jnp.zeros((pad,), score.dtype)])
-            else:
-                score_p = score
-            n_chunks = score_p.shape[0] // chunk
-            grid = score_p.reshape(n_chunks, chunk)
-            m1 = grid.max(axis=1)
-            a1 = grid.argmax(axis=1).astype(jnp.int32)
-            col = jax.lax.broadcasted_iota(jnp.int32, (n_chunks, chunk), 1)
-            grid2 = jnp.where(col == a1[:, None], 0, grid)
-            m2 = grid2.max(axis=1)
-            a2 = grid2.argmax(axis=1).astype(jnp.int32)
-            base = jnp.arange(n_chunks, dtype=jnp.int32) * chunk
-            return (t, jnp.concatenate([m1, m2]),
-                    jnp.concatenate([base + a1, base + a2]))
-
-        t, cand_len, cand_pos = jax.vmap(_segment_jnp)(s_key, s_payload)
+    t, cand_len, cand_pos = jax.vmap(segment_stats)(s_key, s_payload)
 
     # Final ranking of the winners is by DIRECTION DIVERSITY, then length:
     # a straight line (directional texture: stripes, fences, wood grain)
@@ -511,20 +457,13 @@ def cluster_candidates_batched(
     p0 = jnp.clip(cand_pos, 0, n - 1)  # [B, nc]
     p1 = jnp.clip(cand_pos + cand_len - 1, 0, n - 1)
     # d0 at the run start, recomputed from the GATHERED payload/key (the
-    # dense d0 array lives only inside the segmentation backend). All the
-    # gathers from the [B, n] sorted arrays here and below go through
-    # rowsel_gather_batched: flat 1D gathers are the hidden cost of this
-    # stage on TPU, and folding the batch into the row dimension is another
-    # ~2.5x over a vmapped row gather (ops/gather.py).
-    from chalkydri_tpu.ops.gather import rowsel_gather_batched
-
-    pay_p0 = rowsel_gather_batched(s_payload, p0)
-    key_p0 = rowsel_gather_batched(s_key, p0)
+    # dense d0 array lives only inside segment_stats).
+    pay_p0 = take_rows(s_payload, p0)
+    key_p0 = take_rows(s_key, p0)
     d0_p0 = (
         (((pay_p0 >> 26) & 0x3) == 0) & (key_p0 != _INT_MAX)
     ).astype(jnp.int32)
-    d0_run = (rowsel_gather_batched(t, p1)
-              - rowsel_gather_batched(t, p0) + d0_p0)
+    d0_run = take_rows(t, p1) - take_rows(t, p0) + d0_p0
     min_dir = jnp.minimum(d0_run, cand_len - d0_run)
     rank = jnp.where(
         cand_len > 0,
@@ -549,8 +488,7 @@ def cluster_candidates_batched(
     idx_c = jnp.clip(widx, 0, n - 1)
     in_seg = (offs < cnt) & (widx < n)
 
-    x2, y2, dir_idx, p_white = _unpack_payload(
-        rowsel_gather_batched(s_payload, idx_c))
+    x2, y2, dir_idx, p_white = _unpack_payload(take_rows(s_payload, idx_c))
     # dir 0 = (0, 1), dir 1 = (1, 0): a select beats a gather from a
     # 2-element table (tiny-constant gathers measured ~0.8 ms here).
     dx = jnp.where(dir_idx == 0, 1, 0)
@@ -581,7 +519,6 @@ def cluster_candidates(
     cluster_points: int = MAX_CLUSTER_POINTS,
     min_points: int = MIN_CLUSTER_POINTS,
     dropped=None,
-    segment_backend: str | None = None,
 ) -> Clusters:
     """Single-frame ([n] inputs) wrapper over ``cluster_candidates_batched``
     — identical results by construction (the fused sort is canonical, so a
@@ -591,7 +528,6 @@ def cluster_candidates(
         max_points=max_points, max_clusters=max_clusters,
         cluster_points=cluster_points, min_points=min_points,
         dropped=None if dropped is None else jnp.asarray(dropped)[None],
-        segment_backend=segment_backend,
     )
     return jax.tree_util.tree_map(lambda x: x[0], out)
 
@@ -600,8 +536,8 @@ def compact_candidates(black: jax.Array, white: jax.Array,
                        payload: jax.Array, width: int,
                        max_points: int = MAX_EDGE_POINTS):
     """Block-sparse compaction of a dense per-frame candidate array (the
-    jnp extraction's or the Pallas in-kernel emitter's — identical
-    layouts): ``(black, white, payload, dropped)``, each candidate array
+    layout ``extract_boundary_points`` emits): ``(black, white, payload,
+    dropped)``, each candidate array
     ~2x max_points long (or untouched when the frame is small enough).
     ``width`` is the frame width in pixels (sets the per-direction page
     geometry — see ``_compact_blocks``).

@@ -9,7 +9,7 @@ family/bits_corrected config at
   (ring just outside the tag) — the threshold surface is their midpoint,
 - bilinear-sample each data cell center, bit = sample > threshold,
 - XOR + popcount against all codes x 4 rotations in ONE batched integer op
-  (the codebook rides in VMEM; libapriltag walks a per-quad C hash instead),
+  (the codebook is one dense table; libapriltag walks a per-quad C hash instead),
 - decision_margin = mean |sample - threshold| over data cells (same scale
   and intent as libapriltag's margin; used by
   ``filtered_by_decision_margin``, crates/apriltags/src/lib.rs:127-141),
@@ -95,8 +95,9 @@ def _fit_linear_model(xy: jax.Array, values: jax.Array):
     """Least-squares fit v ~ a + b x + c y. xy [S, 2], values [S].
 
     The 3x3 normal matrix is SPD (+ ridge), so the no-pivot solve applies
-    (jnp.linalg.solve's pivoted LU is latency-bound on TPU, ops/linalg.py).
-    Products at HIGHEST precision: TPU's default bf16 matmul would corrupt
+    (jnp.linalg.solve's pivoted LU is a serial pivot search, ops/linalg.py).
+    Products at HIGHEST precision: a default-precision matmul may run in
+    TF32 or bf16 (utils/precision.py), which would corrupt
     the intensity model at the [0, 255] x tag-coordinate scale.
     """
     hp = jax.lax.Precision.HIGHEST
@@ -163,7 +164,7 @@ def make_decoder(family: TagFamily, bits_corrected: int = 2):
         ham_flat = ham.reshape(-1)  # [N*4]
         best = jnp.argmin(ham_flat)
         best_ham = jnp.min(ham_flat)  # == ham_flat[best]; min avoids the
-        #   tiny dynamic gather (XLA's slow per-element path on TPU)
+        #   tiny dynamic gather
         tag_id = (best // 4).astype(jnp.int32)
         rot = (best % 4).astype(jnp.int32)
 

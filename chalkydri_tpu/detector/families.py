@@ -8,7 +8,7 @@ The reference selects a family by name and an error-correction budget
 - ``codes32[n, 4, 2]``: for each code and each of its 4 rotations, the
   (hi, lo) uint32 halves of the packed bit code. Codes are compared with a
   single XOR + popcount against the sampled bits, batched over all quads and
-  all codes at once (one [Q, N*4] integer op on the VPU instead of the
+  all codes at once (one [Q, N*4] integer op instead of the
   reference's per-detection C codebook walk).
 
 Bit packing convention is defined by ``tools/gen_families.py``: bit (r, c) of

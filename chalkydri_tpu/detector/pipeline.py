@@ -1,6 +1,6 @@
 """The fused batched AprilTag detector: frames in, detections out.
 
-This is the TPU replacement for the reference's per-camera C-library call
+This is the batched device replacement for the reference's per-camera C-library call
 ``self.detector.detect(&image)`` (``crates/apriltags/src/lib.rs:301``): one
 jitted program runs threshold -> segmentation -> clustering -> quad fit ->
 edge refine -> decode for a whole batch of frames (all cameras at once,
@@ -15,6 +15,7 @@ same tag; the reference's C detector dedups inside libapriltag).
 
 from __future__ import annotations
 
+from functools import partial
 from typing import NamedTuple
 
 import jax
@@ -24,7 +25,6 @@ from chalkydri_tpu.detector.cluster import (
     MAX_CLUSTER_POINTS,
     MAX_CLUSTERS,
     cluster_candidates_batched,
-    compact_candidates,
     extract_and_compact,
 )
 from chalkydri_tpu.detector.decode import make_decoder
@@ -92,15 +92,13 @@ def make_post_cluster(
     per-id dedup. Shared by the single-device detector (``make_detector``)
     and the spatially-sharded multi-chip pipeline
     (parallel/pipeline.py), which reaches this point via per-shard boundary
-    extraction + ICI candidate all-gather.
+    extraction + a candidate all-gather.
 
     Batch plumbing: the packed sampling image is ONE flat [B*H*W] uint32
     table shared across the per-frame vmap (``in_axes=None``) with
-    per-frame ``base`` offsets folded into the sample indices — a vmapped
-    (batched-table) row gather is ~2.5x slower on v5e than the same
-    gathers against an unbatched table (ops/gather.py), and the
-    refine/decode bilinear samples are the dominant gathers of this
-    stage."""
+    per-frame ``base`` offsets folded into the sample indices, so the
+    refine/decode bilinear samples (the dominant gathers of this stage)
+    are plain gathers from one unbatched table."""
 
     def _tail(hw, packed_flat, base, corners, q_valid, dropped):
         """One frame's refine -> decode -> rank -> dedup (vmapped below;
@@ -147,8 +145,6 @@ def make_post_cluster(
 
     def finish(gray, clusters):
         """gray [B, H, W] full-res frames; clusters fields lead with B."""
-        from functools import partial as _partial
-
         b, h, w = gray.shape
         quads = jax.vmap(fit_quads)(
             clusters.points, clusters.mask, clusters.valid
@@ -174,7 +170,7 @@ def make_post_cluster(
         packed_flat = pack_neighborhood(gray).reshape(-1)
         base = jnp.arange(b, dtype=jnp.int32) * (h * w)
         return jax.vmap(
-            _partial(_tail, (h, w)), in_axes=(None, 0, 0, 0, 0)
+            partial(_tail, (h, w)), in_axes=(None, 0, 0, 0, 0)
         )(packed_flat, base, corners, q_valid, clusters.dropped)
 
     return finish
@@ -221,15 +217,13 @@ def make_detector(
     callable is a HOST-side two-program dispatcher: the standard-budget
     program runs every frame, and iff its per-frame ``dropped_points``
     reports an overflow the batch re-runs on a lazily-compiled 2x-budget
-    program. Static shapes stay static (two fixed programs, the TPU way
-    to express a dynamic budget); clean frames pay nothing — identical
+    program. Static shapes stay static (two fixed programs express a
+    dynamic budget without recompiling); clean frames pay nothing — identical
     detections by value, since compaction keeps every occupied block when
     the cap doesn't bind. Default OFF: the hot fused pipeline
     (chalkydri_tpu.pipeline) reports dropped_points as a health metric
     instead (runtime/app.py dropped_points_total).
     """
-    import os
-
     from chalkydri_tpu.detector.cluster import MAX_EDGE_POINTS
 
     fam = load_family(family) if isinstance(family, str) else family
@@ -237,83 +231,23 @@ def make_detector(
     edge_cap = MAX_EDGE_POINTS if max_edge_points is None else max_edge_points
     assert quad_decimate in (1, 2), "quad_decimate must be 1 or 2"
 
-    # CCL backend: the Pallas VMEM-resident kernel on TPU (9.6 ms vs 89 ms
-    # for the jnp path on a batch-4 half-res 1280x800 load, bit-identical);
-    # jnp elsewhere. CHALKYDRI_NO_PALLAS=1 forces the jnp path.
-    use_pallas = (
-        jax.devices()[0].platform not in ("cpu", "gpu")
-        and os.environ.get("CHALKYDRI_NO_PALLAS") != "1"
-    )
-    use_emitter = use_pallas and os.environ.get("CHALKYDRI_NO_EMITTER") != "1"
-    if use_pallas:
-        from chalkydri_tpu.ops.pallas.ccl_kernel import (
-            EXTRACT_BLOCK_MAX_PIXELS,
-            SINGLE_BLOCK_MAX_PIXELS,
-            extract_kernel_compiles,
-            threshold_ccl_blocked,
-            threshold_ccl_extract_pallas,
-            threshold_ccl_pallas,
-        )
-
-        def threshold_label_fn(small):
-            # Whole-frame-in-VMEM fused kernel when it fits; row-blocked
-            # kernel + seam merges beyond the budget (e.g. the reference's
-            # 1600x1304 geometry at either decimate setting).
-            if small.shape[1] * small.shape[2] <= SINGLE_BLOCK_MAX_PIXELS:
-                return threshold_ccl_pallas(small, iters=ccl_iters)
-            return threshold_ccl_blocked(small, iters=ccl_iters)
-
-    else:
-
-        def threshold_label_fn(small):
-            tern = adaptive_threshold(small)
-            return tern, label_components(tern, iters=ccl_iters)
-
-    from functools import partial as _partial
-
     def candidates_fn(small):
         """[B, h, w] decimated frames -> batched compacted candidate arrays
-        (black, white, payload, dropped). On TPU, frames within the VMEM
-        budget run the FULLY fused threshold+CCL+extraction kernel — tern
-        and labels never round-trip HBM and the extraction stencils run on
-        the VPU over VMEM-resident data (the jnp extract's 17 shifted
-        [h, w] intermediates were the stage's hidden cost). Larger frames
-        (and non-TPU backends) take the two-stage path; results are
-        bit-identical either way (tested). Frames past the whole-frame
-        emitter's VMEM ceiling keep the JNP extraction: a standalone
-        row-blocked extract kernel (ops/pallas/ccl_kernel.py
-        extract_candidates_blocked_pallas) measured 3.3 ms vs the jnp
-        path's 1.0 ms at 1304x1600 batch-2 — XLA fuses the jnp stencils
-        into the compaction's reductions, while a standalone kernel pays
-        full HBM round-trips for six dense candidate pages. The kernel's
-        win exists only when extraction fuses INTO the labeling kernel
-        (the whole-frame emitter above)."""
-        h, w = small.shape[1], small.shape[2]
-        if (
-            use_emitter
-            and h * w <= EXTRACT_BLOCK_MAX_PIXELS
-            and extract_kernel_compiles()
-        ):
-            black, white, payload = threshold_ccl_extract_pallas(
-                small, iters=ccl_iters)
-            return jax.vmap(
-                _partial(compact_candidates, width=w, max_points=edge_cap)
-            )(black, white, payload)
-        tern, labels = threshold_label_fn(small)
+        (black, white, payload, dropped)."""
+        tern = adaptive_threshold(small)
+        labels = label_components(tern, iters=ccl_iters)
         return jax.vmap(
-            _partial(extract_and_compact, max_points=edge_cap)
+            partial(extract_and_compact, max_points=edge_cap)
         )(tern, labels)
 
     def preprocess(gray_batch):
-        """Batch-level decimation (outside the per-frame vmap so the Pallas
-        kernels see the whole batch as their grid)."""
+        """Batch-level 2x2 mean decimation (quad search resolution)."""
         if quad_decimate == 2:
             h2 = (gray_batch.shape[1] // 8) * 8
             w2 = (gray_batch.shape[2] // 8) * 8
             g = gray_batch[:, :h2, :w2]
-            # 2x2 mean via reduce_window: the obvious 5-D reshape+sum puts a
-            # size-2 dim in the lane axis and costs 2.7 ms on v5e for a
-            # batch-4 1280x800 load; reduce_window is 0.6 ms, bit-identical.
+            # 2x2 mean via reduce_window (bit-identical to a 5-D
+            # reshape+sum, without a size-2 minor axis).
             s = jax.lax.reduce_window(
                 g.astype(jnp.uint16), jnp.uint16(0), jax.lax.add,
                 window_dimensions=(1, 2, 2), window_strides=(1, 2, 2),

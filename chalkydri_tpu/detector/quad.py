@@ -6,7 +6,7 @@ error peaks, then refits lines per edge and intersects them. The custom
 detector sketches the same geometry via gift-wrapping
 (``/root/reference/crates/chalkydri-apriltags/src/utils.rs:27-153``).
 
-TPU re-design: a fixed-iteration expectation-maximization style fit,
+Batched re-design: a fixed-iteration expectation-maximization style fit,
 VECTORIZED over clusters AND edges (shapes [K, 4, P] throughout — per-edge
 Python loops of tiny ops cost more in launch overhead than the math itself):
 

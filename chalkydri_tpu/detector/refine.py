@@ -6,7 +6,7 @@ refine_edges recovers sub-pixel accuracy by snapping each edge line to the
 image's actual intensity gradient; the reference gets this through apriltag-sys
 (corner accuracy target <0.1 px, BASELINE.md config #5).
 
-Vectorized TPU version, per quad edge:
+Vectorized batched version, per quad edge:
 
 - sample S points along the edge (excluding corner neighborhoods),
 - at each, walk the outward normal in [-R, R] with sub-pixel steps, bilinear-

@@ -5,10 +5,10 @@ The reference's detectors both use pointer-chasing union-find for
 segmentation: libapriltag's unionfind (via apriltag-sys) and the custom
 detector's raw-pointer ``UnionFind``
 (``/root/reference/crates/chalkydri-apriltags/src/lib.rs:42-113,501-549``).
-Pointer-chasing is hostile to SIMD/TPU — and so are its data-parallel
-look-alikes: pointer *jumping* needs giant random gathers, which cost
-~30 ms per 4M elements on v5e (measured) versus ~1 ms for a whole-image
-scan. So the propagation here is gather-free:
+Pointer-chasing is serial. This module's data-parallel formulation
+avoids pointer *jumping* as well (it needs frame-sized random gathers) and
+uses only shifts and scans, which XLA fuses into dense passes. So the
+propagation here is gather-free:
 
 - every non-'skip' pixel starts with its own flat index as label,
 - each round: (a) min label over connected neighbors (same binary value;

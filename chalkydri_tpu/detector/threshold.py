@@ -1,6 +1,6 @@
 """Stage 1: adaptive (tile-local min/max) thresholding.
 
-TPU-native equivalent of libapriltag's ``threshold()`` (consumed by the
+Batched equivalent of libapriltag's ``threshold()`` (consumed by the
 reference via apriltag-sys, SURVEY.md section 2.3) and of the custom
 detector's windowed adaptive threshold
 (``/root/reference/crates/chalkydri-apriltags/src/lib.rs:191-259``):
@@ -14,10 +14,7 @@ detector's windowed adaptive threshold
   of ``chalkydri-apriltags``'s threshold, lib.rs:319-334).
 
 The whole stage is elementwise + small stencils: XLA fuses it into a couple of
-VPU passes. On TPU the production path fuses this threshold INTO the Pallas
-CCL kernel (ops/pallas/ccl_kernel.threshold_ccl_pallas) so the ternary image
-never round-trips HBM; this jnp version is the CPU/fallback path and the
-golden reference the kernel is tested against.
+dense passes over the frame.
 """
 
 from __future__ import annotations

@@ -5,7 +5,7 @@ Replaces the reference's ``field_layout.rs``
 WPILib-format ``field.json`` (camelCase keys, ``ID``, scalar-first ``W/X/Y/Z``
 quaternion) into tag->field isometries.
 
-TPU-first difference: instead of a ``HashMap<usize, Iso3>``, the layout is a
+Device-first difference: instead of a ``HashMap<usize, Iso3>``, the layout is a
 dense, fixed-capacity array table indexed by tag id, so the fused pipeline can
 gather tag poses for detected ids with a single device gather (no host trip).
 """

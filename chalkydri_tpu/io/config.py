@@ -83,7 +83,7 @@ class CAprilTagsSubsys:
 class MlSubsys:
     """Empty config slot in the reference (config.rs:101-102); here it names
     a jitted model hook (SURVEY.md section 2.3: the Coral Edge TPU slot
-    becomes native TPU inference)."""
+    becomes a jitted model on the vision pipeline's own device)."""
 
     model: Optional[str] = None
 
@@ -125,7 +125,7 @@ class MeshCfg:
     """Device-mesh topology for the fused vision programs.
 
     The reference's scaling surface is graph topology in configuration
-    (``chalkydri.ron:1-157`` — chains per camera); the TPU analogue is the
+    (``chalkydri.ron:1-157`` — chains per camera); the accelerator analogue is the
     device mesh, so it is configuration too:
 
         [mesh]
@@ -133,7 +133,7 @@ class MeshCfg:
         space = 2   # row-sharding (sequence-parallel) axis for big frames
 
     ``data * space`` chips are claimed. With ``space > 1`` each frame's
-    rows additionally span the 'space' axis end to end (ICI halo/seam
+    rows additionally span the 'space' axis end to end (halo/seam
     exchange; parallel/pipeline.py). ``data = 1, space = 1`` (default) is
     the single-device program.
     """

@@ -14,7 +14,7 @@ preserved"), this module parses the RON subset those files use:
 - ``None`` -> None, ``Some(x)`` -> x, bare identifiers -> str
 
 Unlike the reference (which must recompile the binary when the graph
-changes, ``book/src/internals/index.md:5-7``), the TPU runtime loads the
+changes, ``book/src/internals/index.md:5-7``), this runtime loads the
 graph at startup.
 """
 

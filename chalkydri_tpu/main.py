@@ -3,7 +3,8 @@
 Port of the reference main (``/root/reference/crates/chalkydri/src/main.rs:
 49-114``): banner, TOML config with /boot -> /etc -> ./ fallback, graph load
 (RON), unified logger, app loop. The Pi-specific kernel-module eviction and
-GStreamer init have no TPU equivalents; device init is JAX backend init.
+GStreamer init have no accelerator equivalents; device init is JAX backend
+init (``JAX_PLATFORMS`` selects the platform, as JAX itself reads it).
 
 Run:  python -m chalkydri_tpu.main [--graph chalkydri.ron] [--config path]
       [--iters N] [--rate HZ] [--log chalkydri.ctlog]
@@ -12,12 +13,11 @@ Run:  python -m chalkydri_tpu.main [--graph chalkydri.ron] [--config path]
 from __future__ import annotations
 
 import argparse
-import os
 import sys
 
 BANNER = r"""
         chalkydri-tpu
-   multi-camera AprilTag vision on TPU
+   multi-camera AprilTag vision on an accelerator
 """
 
 
@@ -33,32 +33,16 @@ def main(argv=None) -> int:
                    help="serve a driver-station MJPEG preview on this port")
     p.add_argument("--no-synthetic", action="store_true",
                    help="fail instead of synthesizing frames for absent cameras")
-    p.add_argument("--cache-dir", default=None,
-                   help="persistent XLA compilation cache directory "
-                        "(default ~/.cache/chalkydri-tpu; 'none' disables)")
+    p.add_argument("--robot-addr", default=None,
+                   help="send pose packets to this address instead of the "
+                        "team's 10.TE.AM.2 roboRIO")
     args = p.parse_args(argv)
-
-    from chalkydri_tpu.utils.platform import apply_platform_env
-
-    apply_platform_env()
 
     print(BANNER, file=sys.stderr)
 
-    # Persistent compilation cache: the deployment story is systemd
-    # Restart=always (build/chalkydri-tpu.service) — without a cache every
-    # restart pays the full ~30-60 s fused-program compile before the first
-    # pose goes out. With it, warm restarts reload the compiled executable
-    # in seconds.
-    cache_dir = args.cache_dir or os.environ.get(
-        "CHALKYDRI_CACHE_DIR",
-        os.path.join(os.path.expanduser("~"), ".cache", "chalkydri-tpu"),
-    )
-    if cache_dir and cache_dir.lower() != "none":
-        import jax
+    from chalkydri_tpu.utils.cache import enable_compile_cache
 
-        os.makedirs(cache_dir, exist_ok=True)
-        jax.config.update("jax_compilation_cache_dir", cache_dir)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    enable_compile_cache()
 
     from chalkydri_tpu.io.config import Cfg, Config
     from chalkydri_tpu.runtime.graph import TaskGraph
@@ -92,9 +76,15 @@ def main(argv=None) -> int:
         # TOML-configured texture-flood recovery (io/config.py
         # CAprilTagsSubsys.capacity_fallback -> App capacity redispatch).
         detector_kwargs["capacity_fallback"] = True
+    comm = None
+    if args.robot_addr:
+        from chalkydri_tpu.io.whacknet import Comm
+
+        comm = Comm(remote_addr=args.robot_addr)
     app = App(
         graph,
         field_layout=layout,
+        comm=comm,
         team_number=config.team_number,
         synthetic_cameras=not args.no_synthetic,
         logger=logger,

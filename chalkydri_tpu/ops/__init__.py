@@ -1,1 +1,1 @@
-"""Compute ops: Pallas TPU kernels and supporting numerics."""
+"""Compute ops: small-matrix numerics shared by the detector and solver."""

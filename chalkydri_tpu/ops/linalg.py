@@ -1,11 +1,10 @@
-"""Small-matrix linear algebra shaped for TPU latency.
+"""Small-matrix linear algebra shaped for batched latency.
 
-``jnp.linalg.solve``'s partial-pivoted LU is latency-bound on TPU for the
-small batched systems this framework solves (measured v5e: 0.7 ms for one
-batched 15x15 solve, 0.77 ms for 128x 8x8 — the pivot search is scalar
-work). SPD systems don't need pivoting, so an unrolled no-pivot
-elimination is pure vectorized VPU work; non-SPD least-squares problems
-become SPD via their (conditioned) normal equations.
+``jnp.linalg.solve``'s partial-pivoted LU runs a serial pivot search per
+column, which dominates the small batched systems this framework solves
+(15x15, 8x8). SPD systems don't need pivoting, so an unrolled no-pivot
+elimination is pure elementwise work that XLA fuses; non-SPD least-squares
+problems become SPD via their (conditioned) normal equations.
 """
 
 from __future__ import annotations
@@ -74,8 +73,8 @@ def lstsq_spd(a: jax.Array, b: jax.Array) -> jax.Array:
 
     Only for well-conditioned a (normalize your problem first — the normal
     equations square the condition number). The products force HIGHEST
-    precision: TPU matmuls default to bf16, which would void the f32
-    conditioning argument (cost is negligible at these sizes).
+    precision: a default-precision matmul may run in TF32 or bf16
+    (utils/precision.py), which would void the f32 conditioning argument (cost is negligible at these sizes).
     """
     hp = jax.lax.Precision.HIGHEST
     ata = jnp.einsum("...ij,...ik->...jk", a, a, precision=hp)

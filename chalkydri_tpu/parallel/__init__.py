@@ -1,5 +1,5 @@
 """Multi-device parallelism: mesh construction and spatially-sharded stages
-(SURVEY.md sections 2.4, 5.7, 5.8 TPU mappings)."""
+(SURVEY.md sections 2.4, 5.7, 5.8 device mappings)."""
 
 from chalkydri_tpu.parallel.mesh import (  # noqa: F401
     batch_sharding,

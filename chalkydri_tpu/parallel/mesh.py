@@ -1,14 +1,14 @@
 """Device mesh + sharding helpers.
 
 The reference is single-node with per-camera task parallelism (SURVEY.md
-section 2.4); the TPU design maps:
+section 2.4); the device design maps:
 
 - cameras/frames -> the ``data`` mesh axis (pure data parallelism: frames are
   independent),
 - image rows -> the ``space`` mesh axis for the stencil-heavy early stages
-  (threshold, CCL) of frames too large for one chip's VMEM/HBM budget —
+  (threshold, CCL) of frames too large for one device's memory budget —
   the sequence-parallel analogue called for in SURVEY.md section 5.7, with
-  halo exchange over ICI (jax.lax.ppermute) instead of the reference's
+  halo exchange over the device interconnect (jax.lax.ppermute) instead of the reference's
   shared-memory rayon chunks.
 """
 

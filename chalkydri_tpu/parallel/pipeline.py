@@ -8,20 +8,20 @@ Public packaging of the scaling recipe the driver dryrun exercises
 - per-camera parameters (intrinsics, extrinsics) shard with their frames,
 - the field layout replicates (every chip needs every tag pose),
 - jit + committed input shardings let GSPMD partition the whole fused
-  program; collectives ride ICI.
+  program; collectives ride the device interconnect.
 
 With ``spatial=True`` the ``space`` mesh axis additionally row-shards each
-frame END TO END through one program (the TPU re-architecture of the
+frame END TO END through one program (the data-parallel re-architecture of the
 reference's sketched chunked-row cluster merge,
 ``crates/chalkydri-apriltags/src/lib.rs:555-613``):
 
 - decimation, adaptive threshold and CCL run on each chip's row block with
-  ppermute halo/seam exchange over ICI (sharded_stages.py),
-- boundary-candidate extraction runs per shard (1-row halo down over ICI),
+  ppermute halo/seam exchange over the interconnect (sharded_stages.py),
+- boundary-candidate extraction runs per shard (1-row halo down),
   emitting exactly the global candidate set with globally-valid labels and
   coordinates,
 - the shards reconstruct the single-device candidate compaction EXACTLY:
-  per-block candidate counts ride a tiny ICI all-gather, every chip ranks
+  per-block candidate counts ride a tiny all-gather, every chip ranks
   the same blocks (cluster.rank_blocks, tie-breaks included), and a masked psum
   assembles bitwise-identical compacted arrays — so the downstream
   cluster -> quad -> refine -> decode -> solve tail is bit-identical to
@@ -140,8 +140,8 @@ def _make_spatial_step(
         rank_blocks,
         _dilate_vec,
     )
+    from chalkydri_tpu.detector.cluster import take_rows
     from chalkydri_tpu.detector.decode import make_decoder
-    from chalkydri_tpu.ops.gather import rowsel_gather_batched
     from chalkydri_tpu.detector.families import (
         DEFAULT_BITS_CORRECTED,
         DEFAULT_FAMILY,
@@ -155,7 +155,6 @@ def _make_spatial_step(
         _exchange_halo,
         _threshold_block,
         label_components_block,
-        label_components_block_pallas,
     )
     from chalkydri_tpu.pipeline import VisionOutput
     from chalkydri_tpu.geometry.transforms import matrix_to_yaw
@@ -164,20 +163,6 @@ def _make_spatial_step(
     dk = dict(detector_kwargs or {})
     qd = int(dk.get("quad_decimate", 2))
     ccl_iters = int(dk.get("ccl_iters", 12))
-    # CCL implementation inside the shard body: the blocked Pallas VMEM
-    # kernels (the single-chip fast path, ~10x the jnp streaming CCL)
-    # with ICI seam merges, vs the all-jnp per-round path. "auto" selects
-    # the kernels on TPU backends; CPU meshes (the hardware-free test/
-    # dryrun environment) take jnp, with "pallas_interpret" available to
-    # pin kernel-path bit-identity off-device.
-    ccl_impl = str(dk.get("ccl_impl", "auto"))
-    if ccl_impl not in ("auto", "jnp", "pallas", "pallas_interpret"):
-        raise ValueError(
-            f"ccl_impl must be auto/jnp/pallas/pallas_interpret, "
-            f"got {ccl_impl!r}"
-        )
-    if ccl_impl == "auto":
-        ccl_impl = "pallas" if jax.default_backend() == "tpu" else "jnp"
     edge_cap = int(dk.get("max_edge_points", MAX_EDGE_POINTS))
     max_clusters = int(dk.get("max_clusters", MAX_CLUSTERS))
     cluster_points = int(dk.get("cluster_points", MAX_CLUSTER_POINTS))
@@ -233,22 +218,14 @@ def _make_spatial_step(
             f"rows to a multiple of space*{TILE * qd}"
         )
 
-        # -- 2. adaptive threshold with ICI halo exchange -------------------
+        # -- 2. adaptive threshold with halo exchange -----------------------
         tern = _threshold_block(
             _exchange_halo(small, "space"), MIN_WHITE_BLACK_DIFF
         )
 
-        # -- 3. CCL: blocked Pallas VMEM kernels per chip + ICI seam
-        # merges (label order-isomorphic to the jnp path -> bit-identical
-        # detections; tests/test_sharding.py), or the jnp per-round path
-        if ccl_impl == "jnp":
-            labels = label_components_block(tern, hl2, w2, ccl_iters,
-                                            "space")
-        else:
-            labels = label_components_block_pallas(
-                tern, hl2, w2, "space", iters=ccl_iters,
-                interpret=(ccl_impl == "pallas_interpret"),
-            )
+        # -- 3. CCL with per-round seam exchange (global flat labels, so
+        # detections are bit-identical to the single-device program) ------
+        labels = label_components_block(tern, hl2, w2, ccl_iters, "space")
 
         # -- 4. boundary extraction with a 1-up/2-down tern halo ------------
         # (solidity stencil reaches 1 row; a last-core-row down-edge needs
@@ -281,7 +258,7 @@ def _make_spatial_step(
 
         black, white, payload = map(core_slice, (black, white, payload))
 
-        # -- 5. globally-consistent compaction over ICI ---------------------
+        # -- 5. globally-consistent compaction ------------------------------
         # The single-device path keeps the top-ranked 2*max_points/128
         # candidate blocks per direction in ORIENTATION-ALIGNED layouts
         # (cluster._compact_blocks: dir 0 — right pairs / vertical edges —
@@ -290,14 +267,14 @@ def _make_spatial_step(
         # page). To stay BIT-IDENTICAL even when that cap drops blocks,
         # the shards reconstruct the exact same selection: per-block
         # candidate COUNTS and the per-axis both-direction boost vectors
-        # ride tiny ICI collectives, every chip ranks the same blocks
+        # ride tiny collectives, every chip ranks the same blocks
         # (cluster.rank_blocks — tie-breaks included), then each shard
         # contributes its owned slice of every selected block into a psum
         # — every chip ends up holding the single-device compacted
         # arrays, bit for bit. Dir-1 blocks are row-aligned and wholly
         # shard-owned; dir-0 COLUMN blocks span shard row bands, so their
-        # contribution is element-level (a rowsel gather over the local
-        # transposed page, ownership-masked, psum-merged). ICI volume:
+        # contribution is element-level (a gather over the local
+        # transposed page, ownership-masked, psum-merged). Collective volume:
         # counts + boosts ~KBs, 3 x 2*max_points int32 (~1.5 MB).
         n_seg = hl2 * w2  # per-dir per-shard candidates
         assert n_seg % 128 == 0, "per-shard candidate segment must block-align"
@@ -391,7 +368,7 @@ def _make_spatial_step(
             def contribute0(x_local, fill):
                 xt = x_local[:, :n_seg].reshape(bl, hl2, w2).transpose(
                     0, 2, 1).reshape(bl, n_seg)
-                g = rowsel_gather_batched(xt, loc0)
+                g = take_rows(xt, loc0)
                 tot = jax.lax.psum(jnp.where(mine0, g, 0), "space")
                 return jnp.where(valid_r, tot, fill)  # pad rows -> fill
 
@@ -421,7 +398,7 @@ def _make_spatial_step(
             )
 
         # -- 6. cluster -> quad -> refine -> decode (replicated over
-        # 'space'; the full-resolution frame is re-assembled over ICI for
+        # 'space'; the full-resolution frame is re-assembled by all-gather for
         # the sub-pixel sampling stages) ------------------------------------
         clusters = cluster_fn(black, white, payload, dropped=dropped)
         gray_full = jax.lax.all_gather(frames_blk, "space", axis=1, tiled=True)

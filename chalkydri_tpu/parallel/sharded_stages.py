@@ -1,11 +1,11 @@
 """Spatially-sharded detector stages with explicit halo exchange.
 
-TPU mapping of the reference's intra-frame parallelism (rayon over pixel
+Device mapping of the reference's intra-frame parallelism (rayon over pixel
 columns + sketched chunked-row cluster merging,
 ``/root/reference/crates/chalkydri-apriltags/src/lib.rs:301-308,555-613``,
 SURVEY.md sections 2.4 item 2 and 5.7): frame ROWS are sharded across the
 ``space`` mesh axis; local-stencil stages (adaptive threshold) compute on
-their row block plus a halo of neighbor rows fetched over ICI with
+their row block plus a halo of neighbor rows fetched with
 ``jax.lax.ppermute`` — the ring-neighbor-exchange structure of sequence
 parallelism, applied to the image dimension.
 
@@ -88,9 +88,8 @@ def _threshold_block(gray_ext: jax.Array, min_diff: int) -> jax.Array:
 def _seam_row_min(row_lab, row_val, n_lab, n_val):
     """Neighbor-min of one boundary label row against the FACING
     neighbor row: 4-conn for any same ternary value, diagonals white
-    only — THE seam connectivity rule, shared by the per-round jnp path
-    (label_components_block) and the kernel ICI path (_ici_seam_min) so
-    the two cannot silently diverge. Rows are [B, 1, W]; invalid (127)
+    only — THE seam connectivity rule of ``label_components_block``.
+    Rows are [B, 1, W]; invalid (127)
     pixels never merge (their labels are INVALID on both sides anyway).
     """
     from chalkydri_tpu.detector.segment import INVALID
@@ -176,125 +175,15 @@ def label_components_block(block: jax.Array, hl: int, w: int,
     return jax.lax.fori_loop(0, iters, body, labels)
 
 
-def _ici_seam_min(labels: jax.Array, block: jax.Array, axis_name: str,
-                  idx, n: int) -> jax.Array:
-    """One neighbor-min across the CHIP seams (boundary label rows ride
-    ICI via ppermute; connectivity is the shared ``_seam_row_min`` rule,
-    the same one ``label_components_block``'s per-round seam_min uses)."""
-    from chalkydri_tpu.detector.segment import INVALID
-
-    def fetch(rows, direction):
-        perm = [(i, (i + direction) % n) for i in range(n)]
-        return jax.lax.ppermute(rows, axis_name, perm)
-
-    top_val, bot_val = block[:, :1, :], block[:, -1:, :]
-    val_above = fetch(bot_val, +1)
-    val_below = fetch(top_val, -1)
-    val_above = jnp.where(idx == 0, jnp.uint8(127), val_above)
-    val_below = jnp.where(idx == n - 1, jnp.uint8(127), val_below)
-    lab_above = fetch(labels[:, -1:, :], +1)
-    lab_below = fetch(labels[:, :1, :], -1)
-    lab_above = jnp.where(idx == 0, INVALID, lab_above)
-    lab_below = jnp.where(idx == n - 1, INVALID, lab_below)
-
-    top = _seam_row_min(labels[:, :1, :], top_val, lab_above, val_above)
-    bot = _seam_row_min(labels[:, -1:, :], bot_val, lab_below, val_below)
-    return jnp.concatenate([top, labels[:, 1:-1, :], bot], axis=1)
-
-
-def label_components_block_pallas(
-    block: jax.Array,
-    hl: int,
-    w: int,
-    axis_name: str = "space",
-    iters: int = 12,
-    outer_rounds: int | None = None,
-    interpret: bool = False,
-) -> jax.Array:
-    """Kernel-backed CCL over one chip's row block [B, hl, w]: each chip
-    runs the blocked Pallas VMEM propagation
-    (ops/pallas/ccl_kernel.py — the path that makes the single-chip
-    detector fast: 9.6 ms vs 89 ms jnp at the batch-4 load,
-    detector/pipeline.py), with ICI seam merges between chips and a
-    psum-gated outer loop to the GLOBAL fixed point.
-
-    Same structure one level up the memory hierarchy as the single-device
-    blocked path (VMEM block seams -> chip seams; the reference's
-    sketched chunked-row merge, chalkydri-apriltags/src/lib.rs:555-613).
-
-    Labels come out order-isomorphic to ``label_components_block``'s
-    global flat indices (each chip's labels are its LOCAL padded-frame
-    flat ids + idx*hl*wp, monotone in (global row, col)), so every
-    label-equality/ordering consumer downstream — cluster sort keys
-    included — produces bit-identical results (asserted in
-    tests/test_sharding.py against the jnp path, interpret mode).
-
-    Exactness: the outer loop exits only when NO chip's labels changed
-    through (ICI seam-min -> local blocked propagate), which certifies
-    seam agreement AND local fixed points simultaneously; ``outer_rounds``
-    (default 2*n_chips + 2) is the latency cap, reachable only by
-    components serpentining between chips.
-    """
-    from chalkydri_tpu.detector.segment import INVALID
-    from chalkydri_tpu.ops.pallas.ccl_kernel import (
-        label_components_blocked_pallas,
-        propagate_components_blocked,
-    )
-
-    idx = jax.lax.axis_index(axis_name)
-    n = jax.lax.axis_size(axis_name)
-    if outer_rounds is None:
-        outer_rounds = 2 * n + 2
-    wp = (w + 127) // 128 * 128
-
-    # Round 0: block-local convergence with the packed-scan fast path
-    # (local flat labels), then shift onto the global id space — min-
-    # propagation commutes with adding a per-chip constant. The chip's
-    # frame-local convergence CERTIFICATE comes along so the outer loop
-    # can exit seam-first.
-    labels, conv = label_components_blocked_pallas(
-        block, iters=iters, interpret=interpret, want_converged=True)
-    labels = jnp.where(labels == INVALID, INVALID, labels + idx * hl * wp)
-
-    def pending(lab, merged, conv):
-        """ALL chips must certify their local fixed points AND every ICI
-        seam-min must be a no-op — together that IS the global fixed
-        point, so a certified clean exit pays NO confirming propagation
-        (the seam-first pattern of ccl_kernel._merge_to_fixed_point, one
-        level up: a frame with no cross-chip component runs ZERO outer
-        propagations)."""
-        local_bad = jnp.any(merged != lab) | ~conv
-        return jax.lax.psum(local_bad.astype(jnp.int32), axis_name) > 0
-
-    merged0 = _ici_seam_min(labels, block, axis_name, idx, n)
-
-    def cond(c):
-        i, lab, merged, conv = c
-        return (i < outer_rounds) & pending(lab, merged, conv)
-
-    def body(c):
-        i, _, merged, _ = c
-        new, conv = propagate_components_blocked(
-            block, merged, iters=iters, interpret=interpret,
-            want_converged=True)
-        return i + 1, new, _ici_seam_min(new, block, axis_name, idx, n), \
-            conv
-
-    _, labels, _, _ = jax.lax.while_loop(
-        cond, body, (jnp.int32(0), labels, merged0, conv)
-    )
-    return labels
-
-
 def sharded_label_components(
     tern: jax.Array, mesh: Mesh, iters: int = 16
 ) -> jax.Array:
     """Connected-component labeling with frame ROWS sharded over 'space'.
 
     The inter-tile merge structure SURVEY.md section 5.7 calls for: each
-    round, shards exchange their boundary label rows with both neighbors over
-    ICI (ppermute — the ring-neighbor-exchange of sequence parallelism),
-    take the neighbor-min across the seam, then propagate locally (row scans
+    round, shards exchange their boundary label rows with both neighbors
+    (ppermute — the ring-neighbor-exchange of sequence parallelism), take
+    the neighbor-min across the seam, then propagate locally (row scans
     are exact — rows are complete within a shard; column information crosses
     one shard boundary per round). With enough rounds the result equals the
     single-device labeling bit for bit (asserted in tests/test_sharding.py).
@@ -318,7 +207,7 @@ def sharded_adaptive_threshold(
     gray: jax.Array, mesh: Mesh, min_diff: int = MIN_WHITE_BLACK_DIFF
 ) -> jax.Array:
     """Adaptive threshold with rows sharded over the 'space' mesh axis and
-    batch over 'data'; halo rows ride ICI. Semantically identical to
+    batch over 'data'; halo rows ride ppermute. Semantically identical to
     ``detector.threshold.adaptive_threshold``."""
     n_space = mesh.shape["space"]
     assert gray.shape[1] % (n_space * TILE) == 0, "rows must split into tiles"

@@ -1,7 +1,7 @@
 """The fused multi-camera vision pipeline: frames -> robot poses.
 
-This is the device program at the heart of the framework — the TPU
-re-architecture of the reference's per-camera chain
+This is the device program at the heart of the framework — the batched
+accelerator re-architecture of the reference's per-camera chain
 CamPipeline -> GstToCuImage -> AprilTags(detect -> unproject -> SQPnP ->
 publish) (``/root/reference/chalkydri.ron:113-150``,
 ``crates/apriltags/src/lib.rs:293-379``): the per-camera chains collapse into
@@ -70,12 +70,11 @@ def make_frame_solver(
     def solve_frame(dets: Detections, cam_params_row, rc_rot, rc_t, gyro):
         """Per-frame: gather tag poses, unproject corners, solve."""
         ids = dets.ids  # [D]
-        # Tiny-table lookups as one-hot contractions, NOT index gathers:
-        # XLA's per-element gather path cost ~0.3 ms for these three
-        # lookups on v5e (measured solve_stage - sqpnp_core; same class as
-        # the tiny-constant gathers noted in detector/cluster.py). A
-        # [D, T] one-hot matmul is exact — each row has exactly one unit
-        # weight, so the sum reproduces the table row bitwise.
+        # Tiny-table lookups as one-hot contractions, not index gathers:
+        # they fuse with the solve instead of issuing three tiny gathers.
+        # A [D, T] one-hot matmul at HIGHEST precision is exact — each row
+        # has exactly one unit weight, so the sum reproduces the table row
+        # bitwise.
         idx = jnp.clip(ids, 0, n_slots - 1)
         onehot = idx[:, None] == jnp.arange(n_slots, dtype=ids.dtype)[None, :]
         known = jnp.any(onehot & tag_present[None, :], axis=1)
@@ -121,13 +120,10 @@ def make_vision_pipeline(
     over as device constants; per-iteration inputs are frames + gyro.
     """
     dk = dict(detector_kwargs or {})
-    # Keys that only make sense at other layers must not reach the jitted
-    # detector build: ccl_impl selects the SPATIAL shard body's CCL
-    # implementation (parallel/pipeline.py), and capacity_fallback is a
+    # capacity_fallback must not reach the jitted detector build: it is a
     # HOST-side two-program behavior (make_detector's wrapper calls
     # device_get, which cannot run inside this fused jit program; the App
     # implements the equivalent redispatch — runtime/app.py).
-    dk.pop("ccl_impl", None)
     if dk.pop("capacity_fallback", False):
         import logging
 

@@ -2,7 +2,7 @@
 
 Replaces the reference's compile-time Copper app (``#[copper_runtime]``,
 ``crates/chalkydri/src/main.rs:45-46``) with a runtime-loaded graph and the
-TPU execution model from SURVEY.md section 1: the per-camera chains
+batched device execution model from SURVEY.md section 1: the per-camera chains
 (CamPipeline -> GstToCuImage -> AprilTags) collapse into ONE fused device
 launch per iteration, batched over cameras; remaining tasks (monitor,
 calibrator, adapters, custom subsystems) run as ordinary host tasks around
@@ -646,8 +646,8 @@ class App:
     @staticmethod
     def _fetch_small(out):
         """One device->host transfer for the per-camera scalars (per-field
-        ``float(...)`` fetches are a round trip EACH — ruinous on remote
-        TPU transports). The large detections tensor stays on device."""
+        ``float(...)`` fetches wait for one device sync EACH). The large
+        detections tensor stays on device."""
         import jax
 
         x, y, yaw, std, valid, n, dropped = jax.device_get(

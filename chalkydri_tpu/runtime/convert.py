@@ -8,7 +8,7 @@ time-of-validity.
 
 Format handling parity with ``compute_buffer_size``/``default_stride``
 (gst_to_cu.rs:152-188): GREY (pass-through), RGB/BGR (luma conversion),
-YUYV/NV12/I420 (Y-plane extraction). On the TPU path color->gray can also run
+YUYV/NV12/I420 (Y-plane extraction). On the device path color->gray can also run
 on device as the first fused stage; this host task covers graphs that keep
 the conversion explicit.
 """

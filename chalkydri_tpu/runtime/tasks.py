@@ -13,7 +13,7 @@ snapshots — SURVEY.md section 2.2 row 1):
 - ``freeze()/thaw()`` hooks mirror Copper's Freezable (no-op by default, as
   in every reference task, e.g. ``crates/apriltags/src/lib.rs:215``).
 
-The TPU twist lives in the scheduler, not here: batchable sink chains are
+The batching twist lives in the scheduler, not here: batchable sink chains are
 fused into one device launch (scheduler.py).
 """
 

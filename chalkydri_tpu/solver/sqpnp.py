@@ -1,6 +1,6 @@
 """Batched SQPnP (Sequential Quadratic Programming PnP) core.
 
-TPU-native re-design of the reference's from-scratch solver
+Batched re-design of the reference's from-scratch solver
 (``/root/reference/crates/chalkydri_sqpnp/src/lib.rs``). Semantics ported
 exactly; the *shape* of the computation is redesigned for XLA:
 
@@ -140,9 +140,9 @@ def _jacobi_eigh_small(a: jax.Array, sweeps: int = 5):
     cyclic Jacobi: each round applies all of a round-robin schedule's
     DISJOINT Givens rotations as one compound orthogonal G (disjoint
     planes commute exactly), so a sweep is n-ish rounds of 3 matmuls
-    instead of n(n-1)/2 sequential rotations — the solve stage is
-    dispatch-latency-bound on TPU (docs/performance.md) and this halves
-    its longest remaining chain. Branch-free (atan2 handles zero
+    instead of n(n-1)/2 sequential rotations — the solve stage is a
+    chain of tiny dependent ops, so its length is what costs, and this
+    halves its longest remaining chain. Branch-free (atan2 handles zero
     off-diagonals); angles within a round are computed from the same
     pre-round matrix (the standard parallel-Jacobi variant, convergent
     for round-robin orderings; accuracy asserted against numpy's eigh in
@@ -199,9 +199,8 @@ def _analytic_eigh3(a: jax.Array):
     form + cross-product eigenvectors), branch-free.
 
     Replaces the 4-sweep Jacobi inside ``nearest_so3``: the Jacobi's 12
-    sequential rotations are ~100 dependent tiny ops, which is pure
-    dispatch latency on TPU (the solve stage is latency-bound,
-    docs/performance.md); this is ~35 ops with the same f32 accuracy on
+    sequential rotations are ~100 dependent tiny ops (the solve stage
+    is a latency-bound chain); this is ~35 ops with the same f32 accuracy on
     the stress corpus (tests/test_solver.py compares both against the f64
     SVD oracle, including the rank-1/rank-0 guesses the SQPnP candidates
     routinely produce).
@@ -239,7 +238,7 @@ def _analytic_eigh3(a: jax.Array):
     def eigvec(lam):
         m = a - lam * jnp.eye(3, dtype=dtype)
         # All 3 row-pair crosses; pick the largest by norm with a one-hot
-        # select (tiny dynamic gathers take XLA's slow path on TPU).
+        # select (fuses with the arithmetic; no tiny dynamic gather).
         c01 = jnp.cross(m[0], m[1])
         c12 = jnp.cross(m[1], m[2])
         c20 = jnp.cross(m[2], m[0])
@@ -277,8 +276,8 @@ def nearest_so3(r_vec: jax.Array) -> jax.Array:
 
     Semantics of the reference's SVD projection (``sqpnp/src/lib.rs:
     41-59``: U V^T with the last singular column negated when det < 0),
-    computed WITHOUT a LAPACK-style SVD (0.67 ms per batched call on v5e
-    — pivot searches are scalar work): eigendecompose M^T M by fixed-
+    computed WITHOUT a LAPACK-style SVD (its iterations are sequential
+    scalar work): eigendecompose M^T M by fixed-
     iteration Jacobi, then rebuild the orthogonal factor from the two
     dominant singular directions with a cross-product completion (see the
     inline notes — this is also the det<0 fix, and it is exact on the
@@ -390,8 +389,8 @@ def smallest_eigvecs(omega: jax.Array, omega_inv: jax.Array,
     ascending) by INVERSE SUBSPACE ITERATION on a 9 x ``block`` basis +
     ``block`` x ``block`` Rayleigh-Ritz.
 
-    ``jnp.linalg.eigh`` on 9x9 batches costs ~0.67 ms on v5e (its QR
-    iteration is sequential scalar-ish work); the rotation candidates only
+    ``jnp.linalg.eigh`` on 9x9 batches runs a sequential, scalar-ish QR
+    iteration; the rotation candidates only
     need the near-null subspace, and ``omega_inv = (omega + eps I)^-1`` is
     ALREADY computed for the Newton steps. Iterating X <- orthonormalize(
     omega_inv X) with a block WIDER than 3 makes the 3rd Ritz vector
@@ -457,9 +456,9 @@ def newton_refine(r0: jax.Array, omega: jax.Array, max_iter: int = MAX_ITER,
 
     Every fixed point of the reference iteration (h = 0, omega r in
     range(J^T)) is a fixed point of this one (dr = 0 there for any eps), so
-    both converge to the same KKT points; the regularized step is ~4.7x
-    faster on v5e because both solves are SPD (spd_solve) instead of a
-    pivoted 15x15 LU. Masked convergence replaces the early break; a
+    both converge to the same KKT points; the regularized step's two
+    solves are SPD (spd_solve, no pivot search) instead of a pivoted
+    15x15 LU. Masked convergence replaces the early break; a
     non-finite solve freezes the iterate (the reference breaks out).
     """
     if omega_inv is None:
@@ -481,8 +480,8 @@ def newton_refine(r0: jax.Array, omega: jax.Array, max_iter: int = MAX_ITER,
         return r_new, done_new
 
     # CHUNKED UNROLL: while_loop over chunks of 3 straight-line masked
-    # steps. The loop body is ~60 tiny ops and the solve stage is
-    # dispatch-latency-bound on v5e, so unrolling lets XLA fuse across
+    # steps. The loop body is ~60 tiny ops and the solve stage is a
+    # latency-bound chain, so unrolling lets XLA fuse across
     # iterations — but a FULL unroll always pays max_iter steps while
     # clean solves converge in ~4-6; checking the done flag every 3 steps
     # keeps the early exit at chunk granularity. Bit-identical to the
@@ -527,7 +526,7 @@ def solve_candidates(omega: jax.Array, fwd_in_cam: jax.Array, gyro_cos, gyro_sin
     basin — measured on a rendered fronto-parallel two-tag wall: 3/12
     input orderings lost the true pose entirely (every cheirality-valid
     candidate gone), while the 4-eigvec seed set found it in 12/12. The
-    two extra refinements ride the same vmap — latency-neutral on TPU.
+    two extra refinements ride the same vmap, adding no sequential steps.
 
     Returns (r_vecs [2k, 9], penalized_energy [2k], pure_energy [2k]).
     """
@@ -638,9 +637,9 @@ def solve_sqpnp(points_3d: jax.Array, points_2d: jax.Array, mask: jax.Array,
         tied = score <= e_min + 3.0 * eps
         plaus = plaus_fn(r_mats, t_all)
         best = jnp.argmin(jnp.where(tied, plaus, jnp.inf))
-    # Winner extraction by select-sum, not x[best] gathers: tiny dynamic
-    # gathers take XLA's slow per-element path on TPU (see the one-hot
-    # lookup note in chalkydri_tpu/pipeline.py); a one-hot masked sum of
+    # Winner extraction by select-sum, not x[best] gathers: the select
+    # fuses with its producers where a tiny dynamic gather would not (see
+    # the one-hot lookup note in chalkydri_tpu/pipeline.py); a one-hot masked sum of
     # a single nonzero row is bitwise the same value.
     sel = jnp.arange(score.shape[0]) == best
     pick = lambda x: jnp.sum(

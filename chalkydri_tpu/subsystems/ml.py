@@ -3,7 +3,7 @@
 The reference reserved a Coral Edge TPU + TFLite slot (``MlSubsys {}`` config,
 ``chalkydri_core/src/config.rs:101-102``; build infra
 ``build/build-ml.sh:12-160``; the TFLedge subsystem itself was removed,
-``book/src/maintenance/subprojects.md:12-14``). On real TPU hardware the slot
+``book/src/maintenance/subprojects.md:12-14``). Here the slot
 becomes a jitted JAX model hook (SURVEY.md section 2.3): any callable
 ``params, frame -> outputs`` or a flax module apply can be attached and runs
 batched next to the vision pipeline.

@@ -3,7 +3,7 @@
 Replaces the reference's external ``camera-intrinsic-calibration`` +
 ``aprilgrid`` crates (``/root/reference/crates/configurator/src/
 calibration.rs:4-11,110-142``): frames of a 6x6 aprilgrid board are detected
-with the TPU detector itself, accumulated as (board 3D, image 2D)
+with the batched detector itself, accumulated as (board 3D, image 2D)
 correspondences, and solved for an OpenCVModel5:
 
 1. Zhang's method for the closed-form init (homographies per frame -> IAC ->

@@ -356,9 +356,6 @@ def cmd_calibrate(args) -> int:
 
 
 def main(argv=None) -> int:
-    from chalkydri_tpu.utils.platform import apply_platform_env
-
-    apply_platform_env()
     p = argparse.ArgumentParser(prog="chalkydri-configurator")
     p.add_argument("--state", default=STATE_FILE)
     sub = p.add_subparsers(dest="cmd", required=True)

@@ -72,9 +72,6 @@ def cmd_replay(args) -> int:
 
 
 def main(argv=None) -> int:
-    from chalkydri_tpu.utils.platform import apply_platform_env
-
-    apply_platform_env()
     p = argparse.ArgumentParser(prog="logread")
     sub = p.add_subparsers(dest="cmd", required=True)
     d = sub.add_parser("dump")

@@ -1,11 +1,14 @@
 """Matmul-precision control.
 
-TPU's default matmul precision is bf16. That is the right default for the
-detector's bulk image work, but geometry/solver math (3x3 rotations, camera
-models, 9x9/15x15 solver systems) needs full f32: measured on v5e, bf16
-degrades the solved robot pose from ~2e-5 m to ~0.26 m error. Every
-geometry/solver entry point is wrapped with ``highest_precision``; the cost is
-negligible because those matrices are tiny.
+A float32 matmul without an explicit precision may run at reduced
+precision: on the GPU, XLA may lower it to TF32 tensor-core math (10-bit
+mantissa), and other backends default to bf16. Geometry/solver math (3x3
+rotations, camera models, 9x9/15x15 solver systems) needs full f32 — with
+reduced-precision products the solved robot pose degrades from ~2e-5 m to
+decimetres (tests/test_detector.py forces bf16 matmuls on the CPU to pin
+the homography path). Every geometry/solver entry point is
+wrapped with ``highest_precision``; the cost is negligible because those
+matrices are tiny.
 """
 
 from __future__ import annotations

@@ -3,10 +3,10 @@
 The reference reserved a Coral Edge TPU + TFLite slot for exactly this kind
 of auxiliary inference (``MlSubsys {}`` config slot,
 ``chalkydri_core/src/config.rs:101-102``); here the "ML accelerator" is the
-same TPU the vision pipeline runs on, and a model is just a jitted callable
+same device the vision pipeline runs on, and a model is just a jitted callable
 (subsystems/ml.py). This example is a non-learned but genuinely useful
 model: multi-scale normalized template matching for a circular game piece
-(FRC balls/disks), built on ``lax.conv`` so the heavy work lands on the MXU.
+(FRC balls/disks), built on ``lax.conv`` so the heavy work lands on the matrix units.
 
 Use it from a graph node:
 
@@ -79,10 +79,6 @@ def model(frame):
 
 def main():
     import jax
-
-    from chalkydri_tpu.utils.platform import apply_platform_env
-
-    apply_platform_env()
 
     # synthetic scene: noisy background + one bright disk
     rng = np.random.default_rng(7)

@@ -35,7 +35,7 @@ class TestMesh:
 
 class TestShardedThreshold:
     def test_matches_unsharded(self, mesh8):
-        """Row-sharded threshold with ICI halo exchange == the single-device
+        """Row-sharded threshold with halo exchange == the single-device
         stage, bit for bit."""
         fam = load_family("tag36h11")
         canvas, _ = simple_scene(
@@ -85,7 +85,7 @@ class TestDataParallelPipeline:
 
 class TestShardedCCL:
     def test_matches_unsharded_labels(self, mesh8):
-        """Row-sharded CCL with ICI seam merges == single-device labels, bit
+        """Row-sharded CCL with seam merges == single-device labels, bit
         for bit — including blobs that span the shard boundary."""
         from chalkydri_tpu.detector.segment import label_components
         from chalkydri_tpu.parallel.sharded_stages import sharded_label_components
@@ -148,63 +148,6 @@ class TestShardedVisionPipeline:
                                    np.asarray(ref.pose_y), atol=2e-3)
 
 
-class TestKernelShardedCCL:
-    """VERDICT round-4 directive 1: the spatial shard body runs the blocked
-    Pallas VMEM CCL kernels (the single-chip fast path) with ICI seam
-    merges, instead of re-implementing CCL in jnp. Off-device evidence is
-    interpret mode on the CPU mesh; labels come out ORDER-ISOMORPHIC to
-    the jnp/single-device global flat labels (each chip's ids live in a
-    disjoint, ordered range), which is what every downstream consumer —
-    cluster sort keys included — needs for bit-identical results."""
-
-    def test_labels_order_isomorphic_to_single_device(self, mesh8):
-        from functools import partial
-
-        from jax.sharding import PartitionSpec as P
-
-        from chalkydri_tpu.detector.segment import label_components
-        from chalkydri_tpu.parallel.sharded_stages import (
-            label_components_block_pallas,
-        )
-
-        fam = load_family("tag36h11")
-        # tag 3 straddles the chip seam at row 240 (480 rows / 2 shards)
-        canvas, _ = simple_scene(
-            fam,
-            [(3, axis_aligned_corners(320, 240, 100)),
-             (9, axis_aligned_corners(520, 120, 60))],
-        )
-        batch = np.stack([canvas] * 4)
-        tern = adaptive_threshold(jnp.asarray(batch))
-        ref = np.asarray(label_components(tern, iters=24))
-
-        b, h, w = tern.shape
-        hl = h // 2
-        spec = P("data", "space", None)
-
-        @partial(jax.shard_map, mesh=mesh8, in_specs=spec, out_specs=spec,
-                 check_vma=False)
-        def run(block):
-            return label_components_block_pallas(
-                block, hl, w, "space", iters=12, interpret=True)
-
-        tern_s = jax.device_put(
-            np.asarray(tern), frame_sharding(mesh8, spatial=True))
-        out = np.asarray(run(tern_s))
-
-        INVALID = np.iinfo(np.int32).max
-        valid = ref != INVALID
-        np.testing.assert_array_equal(out == INVALID, ~valid)
-        pairs = np.stack([ref[valid], out[valid]], axis=1)
-        uniq = np.unique(pairs, axis=0)
-        # bijection between the two label alphabets ...
-        assert len(np.unique(uniq[:, 0])) == len(uniq)
-        assert len(np.unique(uniq[:, 1])) == len(uniq)
-        # ... and strictly monotone (order-isomorphism)
-        order = np.argsort(uniq[:, 0])
-        assert (np.diff(uniq[order, 1].astype(np.int64)) > 0).all()
-
-
 def _megapixel_scene():
     """The reference's deployed competition geometry (1600x1304 GREY,
     chalkydri.ron:7-9) with rows padded to 1312 = space*8*41 so each
@@ -235,17 +178,11 @@ class TestSpatialEndToEnd:
     -> CCL -> cluster -> quad -> refine -> decode -> solve with each frame's
     ROWS sharded over the 'space' axis. Detections match the single-device
     step: integer fields bit-identical (the candidate pipeline through
-    clustering is reconstructed exactly over ICI), float fields to f32-LSB
-    tolerance (XLA fuses the two programs differently, so sub-pixel
-    reduction order differs — see the in-test comment).
+    clustering is reconstructed exactly by collectives), float fields to
+    f32-LSB tolerance (XLA fuses the two programs differently, so
+    sub-pixel reduction order differs — see the in-test comment)."""
 
-    Parametrized over the shard body's CCL implementation: the all-jnp
-    path and the blocked-Pallas-kernel path (interpret mode on the CPU
-    mesh; on TPU backends "auto" selects the kernels — VERDICT round-4
-    directive 1)."""
-
-    @pytest.mark.parametrize("ccl_impl", ["jnp", "pallas_interpret"])
-    def test_megapixel_frame_spans_chips_bit_identical(self, ccl_impl):
+    def test_megapixel_frame_spans_chips_bit_identical(self):
         if len(jax.devices()) < 8:
             pytest.skip("needs 8 virtual devices")
         import __graft_entry__ as ge
@@ -267,7 +204,7 @@ class TestSpatialEndToEnd:
 
         step, place = make_sharded_vision_pipeline(
             layout, params, rc, mesh, spatial=True,
-            detector_kwargs=dict(base_dk, ccl_impl=ccl_impl),
+            detector_kwargs=base_dk,
         )
         out = step(*place(batch, gyro))
 
@@ -278,7 +215,7 @@ class TestSpatialEndToEnd:
 
         # The directive's bar: identical detections. Integer fields must be
         # EXACT — the whole candidate pipeline through clustering is
-        # reconstructed bit-for-bit over ICI. Float fields (corners,
+        # reconstructed bit-for-bit by collectives. Float fields (corners,
         # margins) are asserted to 1e-3 px: refine/decode reductions are
         # mathematically identical in both programs, but XLA owns the
         # reduction order WITHIN each compiled program and the sharded and

@@ -441,7 +441,7 @@ class TestBatched:
             )
 
     def test_f32_accuracy(self):
-        """TPU-dtype check: f32 solve stays within mm/mrad of the f64 truth on
+        """Device-dtype check: f32 solve stays within mm/mrad of the f64 truth on
         clean scenes (drives the dtype choice flagged in SURVEY.md section 7.3)."""
         rng = np.random.default_rng(15)
         isometries, rays, rc = make_scene(rng, n_tags=3)

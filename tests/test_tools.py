@@ -271,28 +271,24 @@ class TestSoak:
         assert report["iterations"] >= 2
         assert report["packets_rx"] >= 1  # wire path exercised
         assert "app.dispatch" in report["spans"]
-        # Latency-span decomposition (VERDICT r3 directive 6): every span
-        # individually measured; the deploy projection is the arithmetic
-        # sum of the RTT-free boundaries.
+        # Latency-span decomposition: every span individually measured,
+        # each a finite non-negative time, and the report names its device.
         spans = report["latency_spans"]
-        for key in ("rtt_ms", "host_capture_ms", "h2d_put_ms",
-                    "h2d_deploy_ms", "device_step_ms", "d2h_fetch_ms",
-                    "host_publish_ms", "projection_p50_ms"):
+        for key in ("host_capture_ms", "h2d_put_ms", "device_step_ms",
+                    "d2h_fetch_ms", "host_publish_ms"):
             assert key in spans, f"missing latency span {key}"
-        expected = (spans["host_capture_ms"] + spans["h2d_deploy_ms"]
-                    + spans["device_step_ms"] + spans["d2h_fetch_ms"]
-                    + spans["host_publish_ms"])
-        assert abs(spans["projection_p50_ms"] - expected) < 0.01
+            assert 0.0 <= spans[key] < 60_000.0, (key, spans[key])
         assert spans["h2d_bytes"] == 1 * 240 * 320
+        assert report["device"]["platform"] == "cpu"
         assert "capture_to_udp_ms_p999" in report
 
 
 class TestImportHygiene:
     def test_package_import_does_not_initialize_jax_backend(self):
         """Importing chalkydri_tpu must not create device arrays at module
-        scope: committing a backend at import time hangs every CLI/import
-        when the TPU transport is down, and pins the platform before apps
-        (or tests) can select one. Regression: geometry/transforms.py,
+        scope: committing a backend at import time pins the platform
+        before apps (or tests) can select one, and makes every import pay
+        device start-up. Regression: geometry/transforms.py,
         detector/homography.py and subsystems/aaec.py once held
         module-level jnp constants. Run in a subprocess because this
         process's conftest already initialized a backend."""
@@ -324,12 +320,177 @@ class TestImportHygiene:
         assert "CLEAN" in out.stdout
 
 
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+class TestCompileCache:
+    def test_env_var_is_used_and_nothing_else_is_set(self, monkeypatch,
+                                                     tmp_path):
+        import jax
+
+        from chalkydri_tpu.utils.cache import enable_compile_cache
+
+        before = jax.config.jax_compilation_cache_dir
+        monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path))
+        assert enable_compile_cache() == str(tmp_path)
+        assert jax.config.jax_compilation_cache_dir == before
+
+    def test_default_is_the_checkouts_ignored_cache_dir(self, monkeypatch):
+        import jax
+
+        from chalkydri_tpu.utils.cache import enable_compile_cache
+
+        monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+        before = jax.config.jax_compilation_cache_dir
+        try:
+            path = enable_compile_cache()
+            assert jax.config.jax_compilation_cache_dir == path
+        finally:
+            jax.config.update("jax_compilation_cache_dir", before)
+        assert path == os.path.join(REPO, ".jax_cache")
+        assert os.path.isdir(path)
+        with open(os.path.join(REPO, ".gitignore")) as f:
+            assert ".jax_cache/" in f.read().split()
+
+
+class TestDeviceInfo:
+    def test_cpu_is_named_and_refused_for_measurement(self):
+        from chalkydri_tpu.utils.device import device_info, require_gpu
+
+        assert device_info() == {"platform": "cpu", "kind": "cpu",
+                                 "count": 8}
+        with pytest.raises(SystemExit, match="no GPU"):
+            require_gpu()
+
+    def test_stage_bytes_and_hbm_share(self):
+        from chalkydri_tpu.tools.perfprobe import hbm_share, stage_bytes
+
+        # uint8 frame in, uint8 ternary + int32 labels out.
+        assert stage_bytes("threshold_ccl", 4, 400, 640) == 4 * 400 * 640 * 6
+        n = stage_bytes("cluster_total", 1, 0, 0, n_cand=10, k=2, p=3)
+        assert n == 3 * 4 * 10 + 4 * 4 * 2 * 3 + 2 * 3 + 5 * 2 + 4
+        # 3.35 GB in 1 ms on a 3.35 TB/s card is its whole peak.
+        assert hbm_share(int(3.35e9), 1.0, "NVIDIA H100 80GB HBM3") == \
+            pytest.approx(1.0)
+        with pytest.raises(KeyError):
+            hbm_share(1, 1.0, "cpu")
+        with pytest.raises(ValueError):
+            stage_bytes("decode", 1, 1, 1)
+
+
+def _chip_smoke():
+    import importlib
+
+    return importlib.import_module("chip_smoke")
+
+
+class TestChipSmoke:
+    """chip_smoke.py runs only on a GPU; here its refusal, its numpy
+    scene renderer and its comparators are checked at tiny sizes."""
+
+    @pytest.mark.parametrize("alone", [False, True])
+    def test_exits_nonzero_without_gpu_or_repo(self, tmp_path, alone):
+        import shutil
+        import subprocess
+        import sys
+
+        script = os.path.join(REPO, "chip_smoke.py")
+        cwd = REPO
+        if alone:
+            shutil.copy(script, tmp_path)
+            script, cwd = str(tmp_path / "chip_smoke.py"), str(tmp_path)
+        env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+        env["JAX_PLATFORMS"] = "cpu"
+        out = subprocess.run([sys.executable, script], cwd=cwd, env=env,
+                             capture_output=True, text=True, timeout=300)
+        assert out.returncode != 0
+        assert '"ok": true' not in out.stdout
+
+    def test_renderer_truth_lies_on_the_drawn_tags(self):
+        cs = _chip_smoke()
+        tags = cs.load_tags()
+        frames, truth = cs.render_field_frames(tags, 2, 400, 640, 450.0)
+        assert frames.shape == (2, 400, 640) and frames.dtype == np.uint8
+        for b, t in enumerate(truth):
+            assert len(t["corners"]) == 2
+            for c in t["corners"].values():
+                assert c.shape == (4, 2)
+                assert (c[:, 0] > 0).all() and (c[:, 0] < 640).all()
+                assert (c[:, 1] > 0).all() and (c[:, 1] < 400).all()
+                # Just inside each corner (toward the centre) is the
+                # tag's black border.
+                for p in c + 0.1 * (c.mean(axis=0) - c):
+                    assert frames[b, int(p[1]), int(p[0])] < 60
+            # The corners project back from the tag poses at the truth pose.
+            calib = {"fx": 450.0, "fy": 450.0, "cx": 320.0, "cy": 200.0}
+            for tid, c in t["corners"].items():
+                pix, depth = cs.project(cs.tag_corners_world(*tags[tid]),
+                                        t["xy"], t["yaw"], calib)
+                assert (depth > 0).all()
+                np.testing.assert_allclose(pix, c, atol=1e-9)
+        assert (frames[:, 0, 0] == 150).all()  # untouched background
+
+    def test_scene_warp_meets_the_detector_corner_gate(self):
+        """tools.scene draws corners where the detector finds them
+        (< 0.1 px on a clean scene), so it can stand as ground truth."""
+        import jax.numpy as jnp
+
+        from chalkydri_tpu.detector import load_family, make_detector
+        from chalkydri_tpu.tools.scene import place_tag
+
+        canvas = np.full((240, 320), 150, np.uint8)
+        want = place_tag(canvas, load_family("tag36h11"), 7,
+                         [[95, 190], [215, 185], [210, 70], [100, 60]])
+        det = make_detector(quad_decimate=1)(jnp.asarray(canvas)[None])
+        valid = np.asarray(det.valid[0])
+        assert np.asarray(det.ids[0])[valid].tolist() == [7]
+        got = np.asarray(det.corners[0])[valid][0]
+        assert np.abs(got - want).max() < 0.1
+
+    def _truth_and_output(self):
+        cs = _chip_smoke()
+        c1 = np.array([[10, 20], [30, 20], [30, 0], [10, 0]], np.float64)
+        truth = [{"xy": np.array([1.0, 2.0]), "yaw": np.pi - 1e-3,
+                  "corners": {3: c1, 4: c1 + 50}}]
+        out = {"ids": np.array([[4, 3, -1]]),
+               "corners": np.stack([c1 + 50, c1 + 0.05, 0 * c1])[None],
+               "valid": np.array([[True, True, False]]),
+               "pose_valid": np.array([True]), "tag_count": np.array([2]),
+               "pose_x": np.array([1.01]), "pose_y": np.array([2.0]),
+               "pose_yaw": np.array([-np.pi + 1e-3])}
+        return cs, truth, out
+
+    def test_compare_to_truth(self):
+        cs, truth, out = self._truth_and_output()
+        err = cs.compare_to_truth(out, truth)
+        assert err["corner_px"] == pytest.approx(0.05)
+        assert err["xy_m"] == pytest.approx(0.01)
+        assert err["yaw_rad"] == pytest.approx(2e-3)  # across the +-pi wrap
+        for key, bad in (("ids", np.array([[5, 3, -1]])),
+                         ("pose_valid", np.array([False])),
+                         ("tag_count", np.array([1]))):
+            with pytest.raises(cs.PhaseFailed):
+                cs.compare_to_truth(dict(out, **{key: bad}), truth)
+
+    def test_compare_outputs(self):
+        cs, _, out = self._truth_and_output()
+        assert cs.compare_outputs(out, out) == {
+            "corner_px": 0.0, "xy_m": 0.0, "yaw_rad": 0.0}
+        moved = dict(out, corners=out["corners"] + 0.01,
+                     pose_yaw=out["pose_yaw"] - 2e-3)
+        err = cs.compare_outputs(out, moved)
+        assert err["corner_px"] == pytest.approx(0.01)
+        assert err["yaw_rad"] == pytest.approx(2e-3)
+        with pytest.raises(cs.PhaseFailed, match="valid"):
+            cs.compare_outputs(out, dict(out, valid=~out["valid"]))
+
+
 class TestPerfprobeHetero:
     def test_hetero_mode_smoke_cpu(self, capsys, monkeypatch):
-        """`perfprobe --hetero` (the mixed-rig characterization,
-        BENCH_NOTES round 4) must run off-device: builds two geometry
-        groups, probes each alone and the pair, reports pair_vs_sum.
-        CPU numbers are not TPU numbers — this pins the probe paths."""
+        """`perfprobe --hetero` (the mixed-rig characterization) must run
+        off-device with --cpu: builds two geometry groups, probes
+        each alone and the pair, reports pair_vs_sum. CPU numbers are not
+        device numbers — this pins the probe paths."""
         import sys as _sys
 
         from chalkydri_tpu.tools.perfprobe import main as probe_main
